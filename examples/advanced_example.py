@@ -13,8 +13,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
-from sparsex_tpu.ops import vector as vec
+import sparsex_jax as spx
+from sparsex_jax.ops import vector as vec
 
 
 def main():

@@ -16,9 +16,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
-from sparsex_tpu.solvers import cg
-from sparsex_tpu.symmetric import build_symmetric_csx
+import sparsex_jax as spx
+from sparsex_jax.solvers import cg
+from sparsex_jax.symmetric import build_symmetric_csx
 
 
 def main():

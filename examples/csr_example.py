@@ -13,7 +13,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
+import sparsex_jax as spx
 
 
 def main():

@@ -9,14 +9,16 @@ skipping preprocessing.
 
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
+import sparsex_jax as spx
 
-CACHE = os.environ.get("SPX_CACHE_FILE", "/tmp/sparsex_tpu_cache.npz")
+CACHE = os.environ.get("SPX_CACHE_FILE", os.path.join(
+    tempfile.gettempdir(), "sparsex_jax_cache.npz"))
 
 
 def main():

@@ -15,7 +15,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
+import sparsex_jax as spx
 
 LOOPS = 128
 

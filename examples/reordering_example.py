@@ -13,9 +13,9 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import sparsex_tpu as spx
-from sparsex_tpu.ops import vector as vec
-from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+import sparsex_jax as spx
+from sparsex_jax.ops import vector as vec
+from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 
 
 def main():
@@ -34,7 +34,7 @@ def main():
     y = np.asarray(vec.inv_reorder(np.asarray(y_perm), A.permutation))
 
     # check vs the unpermuted oracle
-    from sparsex_tpu.io.mmf import load_mmf
+    from sparsex_jax.io.mmf import load_mmf
     oracle = load_mmf(matrix)
     want = coo_spmv(oracle.nrows, *oracle.tocoo(), x)
     print("rel err vs oracle:", max_rel_error(y, want))

@@ -1,10 +1,10 @@
 #!/usr/bin/env python
 """SpGEMM example: C = A @ B as a new tuned matrix.
 
-The reference library stops at SpMV; SpGEMM is part of the TPU build's
+The reference library stops at SpMV; SpGEMM is part of this build's
 north star.  The symbolic work (structure of C) runs once on the host;
 the result is a regular tuned CsxMatrix, so downstream SpMV/SpMM runs on
-the full TPU execution classes.
+the full device execution classes.
 
 Run: python examples/spgemm_example.py
 """
@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sparsex_tpu.csx import CsxMatrix  # noqa: E402
-from sparsex_tpu.ops.spgemm import spgemm  # noqa: E402
+from sparsex_jax.csx import CsxMatrix  # noqa: E402
+from sparsex_jax.ops.spgemm import spgemm  # noqa: E402
 
 
 def main():

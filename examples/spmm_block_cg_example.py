@@ -2,8 +2,8 @@
 
 Multi-RHS extension of the reference's CG workflow (the reference API
 stops at single vectors, ``include/sparsex/matvec.h``): one SpMM per
-iteration amortizes the sparse gathers over all right-hand sides — the
-TPU-native win of the k axis.
+iteration amortizes the sparse index loads over all right-hand sides —
+the win of the k axis.
 
 Run: python examples/spmm_block_cg_example.py
 """
@@ -15,9 +15,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import sparsex_tpu as spx  # noqa: E402
-from sparsex_tpu.csx import CsxMatrix  # noqa: E402
-from sparsex_tpu.solvers import block_cg  # noqa: E402
+import sparsex_jax as spx  # noqa: E402
+from sparsex_jax.csx import CsxMatrix  # noqa: E402
+from sparsex_jax.solvers import block_cg  # noqa: E402
 
 
 def main():

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.io.csr import csr_from_coo
-from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+import sparsex_jax as spx
+from sparsex_jax.io.csr import csr_from_coo
+from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 from tests import fixtures
 
 TOL = 1e-6
@@ -125,7 +125,7 @@ def test_symmetric_mmf_api(tmp_path):
     inp = spx.input_load_mmf(path)
     mat = spx.mat_tune(inp)
     # oracle from the mirrored load
-    from sparsex_tpu.io.mmf import load_mmf
+    from sparsex_jax.io.mmf import load_mmf
     full = load_mmf(path)
     x = np.random.default_rng(5).standard_normal(8)
     got = np.asarray(spx.matvec_mult(1.0, mat, x))
@@ -147,7 +147,7 @@ def test_vector_part_ops_and_copy():
     """spx_vec_{add,sub,mul}_part, copy, init_rand_range parity
     (ref src/api/matvec.c:849-1001)."""
     import numpy as np
-    from sparsex_tpu.ops import vector as vec
+    from sparsex_jax.ops import vector as vec
 
     a = np.arange(10, dtype=np.float64)
     b = np.full(10, 2.0)
@@ -170,8 +170,8 @@ def test_vector_part_ops_and_copy():
 def test_measure_load_imbalance():
     """Runtime per-shard secs report (ref SpmvTest.cpp:35-60)."""
     import numpy as np
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
 
     cfg = Config.reset()
     cfg.set("spx.rt.nr_threads", "2")
@@ -188,3 +188,29 @@ def test_measure_load_imbalance():
     secs, imb = mat.measure_load_imbalance(loops=8)
     assert len(secs) == 2 and all(s > 0 for s in secs)
     assert imb >= 0.0
+
+
+def test_float64_without_x64_warns_once():
+    """mat_tune says through the logger that float64 values will run in
+    float32 when jax_enable_x64 is off."""
+    import jax
+
+    from sparsex_jax.logger import Level, LoggingHandler
+
+    msgs = []
+    handler = LoggingHandler.instance()
+    old = dict(handler.sinks)
+    try:
+        handler.set_sink(Level.WARNING, msgs.append)
+        n, _, rows, cols, vals = fixtures.random_coo(40, 40, seed=3)
+        rowptr = np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                            minlength=n))])
+        inp = spx.input_load_csr(rowptr, cols, vals, n, n)
+        with jax.enable_x64(False):
+            spx.mat_tune(inp)
+        spx.mat_tune(inp)          # x64 on (the test harness): no warning
+    finally:
+        handler.sinks.clear()
+        handler.sinks.update(old)
+    hits = [m for m in msgs if "jax_enable_x64" in m]
+    assert len(hits) == 1, msgs

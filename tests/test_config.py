@@ -2,17 +2,17 @@
 
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.config import Config
-from sparsex_tpu.errors import SparsexError
+import sparsex_jax as spx
+from sparsex_jax.config import Config
+from sparsex_jax.errors import SparsexError
 
 
 def test_defaults_match_reference():
     cfg = Config.instance()
     assert cfg.nr_threads == 1
-    # Default heuristic is the TPU execution-cost model; the reference's
+    # Default heuristic is the device execution-cost model; the reference's
     # "ratio"/"cost" heuristics remain selectable for behavioral parity.
-    assert cfg.heuristic == "tpu"
+    assert cfg.heuristic == "device"
     assert cfg.dia_min_fill == pytest.approx(0.01)
     assert cfg.xform == "all"
     assert cfg.sampling == "portion"
@@ -55,3 +55,11 @@ def test_env_overrides():
     assert cfg.xform == "h,d"
     assert cfg.sampling == "none"
     assert cfg.symmetric is True
+
+
+@pytest.mark.parametrize("key", ["spx.jax.use_pallas", "spx.jax.sb_pages",
+                                 "spx.jax.min_fused_nnz"])
+def test_removed_kernel_knobs_rejected(key):
+    """The knobs that chose the removed Pallas kernels are unknown options."""
+    with pytest.raises(SparsexError):
+        spx.option_set(key, "1")

@@ -9,9 +9,9 @@ symmetric variants, expected failures) at the reference tolerance of 1e-6
 import numpy as np
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.csx import CsxMatrix
-from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+import sparsex_jax as spx
+from sparsex_jax.csx import CsxMatrix
+from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 from tests import fixtures
 
 TOL = 1e-6
@@ -120,7 +120,7 @@ def test_save_restore_roundtrip(tmp_path):
     nrows, ncols, rows, cols, vals = MATRICES["banded"]
     mat = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals)
     path = str(tmp_path / "mat.npz")
-    from sparsex_tpu.persist import restore_csx, save_csx
+    from sparsex_jax.persist import restore_csx, save_csx
     save_csx(mat, path)
     mat2, _ = restore_csx(path)
     x = np.random.default_rng(1).standard_normal(ncols)
@@ -129,7 +129,7 @@ def test_save_restore_roundtrip(tmp_path):
 
 
 def test_rcm_reorder():
-    from sparsex_tpu.reorder import bandwidth, reorder_rcm
+    from sparsex_jax.reorder import bandwidth, reorder_rcm
     nrows, ncols, rows, cols, vals = fixtures.symmetric_coo(n=80, seed=7)
     r2, c2, v2, perm = reorder_rcm(nrows, ncols, rows, cols, vals)
     assert bandwidth(r2, c2) <= bandwidth(rows, cols)

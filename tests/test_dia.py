@@ -1,6 +1,6 @@
 """Dense-diagonal (DIA) folding and execution.
 
-DIA tables are the TPU-native execution class for diagonal/anti-diagonal
+DIA tables are the device execution class for diagonal/anti-diagonal
 runs (elementwise windows instead of gather/scatter, see
 ``preprocess/tables.py`` ``DiagTable``); these tests pin folding decisions,
 numerical results vs the dense oracle, get/set/tocoo behavior, persistence
@@ -10,10 +10,10 @@ and the sharded path.
 import numpy as np
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.config import Config
-from sparsex_tpu.csx import CsxMatrix
-from sparsex_tpu.ops.oracle import max_rel_error
+import sparsex_jax as spx
+from sparsex_jax.config import Config
+from sparsex_jax.csx import CsxMatrix
+from sparsex_jax.ops.oracle import max_rel_error
 
 
 def banded(n=96, bands=(0, 1, -3), anti=False, seed=0):
@@ -65,14 +65,14 @@ def test_dia_folding_and_result(anti):
 
 
 def test_dia_fill_threshold():
-    """Sparse diagonals (below dia_min_fill): the tpu heuristic keeps them
+    """Sparse diagonals (below dia_min_fill): the device heuristic keeps them
     on the (faster) delta path entirely; the reference-parity heuristics
     still encode them as RunTables; lowering the threshold folds to DIA."""
     cfg = Config.instance()
     cfg.set("spx.preproc.xform", "d")
     cfg.set("spx.preproc.sampling", "none")
     cfg.set("spx.matrix.min_coverage", "0.0")
-    cfg.set("spx.tpu.dia_min_fill", "0.5")
+    cfg.set("spx.jax.dia_min_fill", "0.5")
     n = 400
     # one short diagonal run (fill 10/400 < 0.5)
     rows = np.arange(10, 20, dtype=np.int64)
@@ -88,9 +88,9 @@ def test_dia_fill_threshold():
     assert not tr.dias
     assert tr.runs and sum(r.nnz for r in tr.runs) == 10
 
-    # lower the threshold: same input folds to DIA (tpu heuristic again)
-    cfg.set("spx.preproc.heuristic", "tpu")
-    cfg.set("spx.tpu.dia_min_fill", "0.01")
+    # lower the threshold: same input folds to DIA (device heuristic again)
+    cfg.set("spx.preproc.heuristic", "device")
+    cfg.set("spx.jax.dia_min_fill", "0.01")
     mat2 = CsxMatrix.from_coo(n, n, rows, cols, vals)
     assert mat2.shards[0].dias
     x = np.random.default_rng(2).standard_normal(n)
@@ -145,7 +145,7 @@ def test_dia_persist_roundtrip(tmp_path):
     n, rows, cols, vals = banded()
     mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
     assert mat.shards[0].dias
-    from sparsex_tpu.persist import restore_csx, save_csx
+    from sparsex_jax.persist import restore_csx, save_csx
     path = str(tmp_path / "dia.npz")
     save_csx(mat, path)
     mat2, _ = restore_csx(path)
@@ -164,9 +164,9 @@ def test_symmetric_persist_roundtrip(tmp_path):
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "none")
     n, _, rows, cols, vals = symmetric_coo(n=40)
-    from sparsex_tpu.symmetric import SymCsxMatrix, build_symmetric_csx
+    from sparsex_jax.symmetric import SymCsxMatrix, build_symmetric_csx
     mat = build_symmetric_csx(n, n, rows, cols, vals)
-    from sparsex_tpu.persist import restore_csx, save_csx
+    from sparsex_jax.persist import restore_csx, save_csx
     path = str(tmp_path / "sym.npz")
     save_csx(mat, path)
     mat2, _ = restore_csx(path)
@@ -198,7 +198,7 @@ def test_symmetric_banded_with_dias():
     vals = np.concatenate(vals)
     o = np.lexsort((cols, rows))
     rows, cols, vals = rows[o], cols[o], vals[o]
-    from sparsex_tpu.symmetric import build_symmetric_csx
+    from sparsex_jax.symmetric import build_symmetric_csx
     mat = build_symmetric_csx(n, n, rows, cols, vals)
     assert any(t.dias for t in mat.shards)
     x = rng.standard_normal(n)
@@ -209,7 +209,7 @@ def test_symmetric_banded_with_dias():
 def test_sharded_with_dias():
     import jax
     from jax.sharding import Mesh
-    from sparsex_tpu.parallel.shard import ShardedCsx
+    from sparsex_jax.parallel.shard import ShardedCsx
     cfg = Config.instance()
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "none")
@@ -222,3 +222,39 @@ def test_sharded_with_dias():
     x = np.random.default_rng(8).standard_normal(n)
     y = np.asarray(sh.matvec(x))
     assert max_rel_error(y, dense_of(n, rows, cols, vals) @ x) < 1e-10
+
+
+DIA_SETS = [((0,), 1000, 1000),
+            ((0, 1, -1, 8, -13), 700, 1100),
+            ((-700, -3, 0, 5, 300, 900), 1000, 1000)]
+
+
+@pytest.mark.parametrize("anti", [False, True], ids=["diag", "anti"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("offsets,nrows,ncols", DIA_SETS,
+                         ids=["one", "band", "wide"])
+def test_dia_kernel_vs_oracle(offsets, nrows, ncols, dtype, anti):
+    """The static-offset DIA kernel against a loop oracle: diagonals
+    ``y[r] += dv[k, r] x[r + o]``, anti-diagonals (s = ncols - 1 + o)
+    ``y[r] += dv[k, r] x[s - r]``; out-of-matrix lanes hold zeros."""
+    import jax.numpy as jnp
+
+    from sparsex_jax.ops.kernels import dia_contrib
+
+    rng = np.random.default_rng(len(offsets) + nrows)
+    offs = tuple(ncols - 1 + o for o in offsets) if anti else offsets
+    r = np.arange(nrows)
+    dv = rng.standard_normal((len(offs), nrows)).astype(dtype)
+    cols = [(o - r) if anti else (r + o) for o in offs]
+    for k, c in enumerate(cols):
+        dv[k, (c < 0) | (c >= ncols)] = 0
+    x = rng.standard_normal(ncols).astype(dtype)
+    y, _ = dia_contrib(((anti, offs, len(offs)),), [{"vals": jnp.asarray(dv)}],
+                       jnp.asarray(x), nrows, 0,
+                       jnp.zeros(nrows, dtype=dtype), ncols=ncols)
+    want = np.zeros(nrows)
+    for k, c in enumerate(cols):
+        ok = (c >= 0) & (c < ncols)
+        want[ok] += dv[k, ok].astype(np.float64) * x[c[ok]]
+    tol = 1e-5 if dtype == "float32" else 1e-13
+    np.testing.assert_allclose(np.asarray(y), want, rtol=tol, atol=tol)

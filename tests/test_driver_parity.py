@@ -66,10 +66,10 @@ DRIVER_TESTS = [
 
 
 def run_one(matrix, options, reorder):
-    import sparsex_tpu as spx
-    from sparsex_tpu.io.mmf import load_mmf
-    from sparsex_tpu.ops import vector as vec
-    from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+    import sparsex_jax as spx
+    from sparsex_jax.io.mmf import load_mmf
+    from sparsex_jax.ops import vector as vec
+    from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 
     for k, v in options.items():
         spx.option_set(k, v)
@@ -99,8 +99,8 @@ def test_driver(name, matrix, options, reorder):
 # --- the two expected-failure tests (ref test-sparsex.sh.in:199-222) ------
 
 def test_symmetric_flag_on_unsymmetric_input_fails_gracefully():
-    import sparsex_tpu as spx
-    from sparsex_tpu.errors import SparsexError
+    import sparsex_jax as spx
+    from sparsex_jax.errors import SparsexError
     spx.option_set("spx.matrix.symmetric", "true")
     with pytest.raises(SparsexError):
         inp = spx.input_load_mmf(DEMOPATT)
@@ -108,8 +108,8 @@ def test_symmetric_flag_on_unsymmetric_input_fails_gracefully():
 
 
 def test_unsorted_mmf_fails_gracefully():
-    import sparsex_tpu as spx
-    from sparsex_tpu.errors import SparsexError
+    import sparsex_jax as spx
+    from sparsex_jax.errors import SparsexError
     with pytest.raises(SparsexError):
         spx.input_load_mmf(DEMOPATT_UNSORTED)
 

@@ -4,10 +4,10 @@ machinery, ``CsxManager::UpdateNewRow``), tiny shapes, rectangular."""
 import numpy as np
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.config import Config
-from sparsex_tpu.csx import CsxMatrix
-from sparsex_tpu.ops.oracle import max_rel_error
+import sparsex_jax as spx
+from sparsex_jax.config import Config
+from sparsex_jax.csx import CsxMatrix
+from sparsex_jax.ops.oracle import max_rel_error
 
 
 def test_empty_matrix():
@@ -101,9 +101,9 @@ def test_index_width_narrowing():
     (VERDICT r2 #7; ref GetDeltaSize CsxManager.hpp:635-682)."""
     import numpy as np
 
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
-    from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
+    from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 
     cfg = Config.instance()
     cfg.set("spx.preproc.xform", "all")

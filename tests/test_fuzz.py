@@ -11,9 +11,9 @@ import itertools
 import numpy as np
 import pytest
 
-from sparsex_tpu.config import Config
-from sparsex_tpu.csx import CsxMatrix
-from sparsex_tpu.ops.oracle import max_rel_error
+from sparsex_jax.config import Config
+from sparsex_jax.csx import CsxMatrix
+from sparsex_jax.ops.oracle import max_rel_error
 
 
 def random_structured(seed, nrows, ncols):
@@ -107,8 +107,8 @@ SYM_CASES = list(itertools.product(range(4), [1, 2]))
 def test_fuzz_symmetric(seed, nshards):
     """Random symmetric structure mixes vs the mirrored dense oracle,
     plus a save/restore roundtrip."""
-    from sparsex_tpu.persist import restore_csx, save_csx
-    from sparsex_tpu.symmetric import build_symmetric_csx
+    from sparsex_jax.persist import restore_csx, save_csx
+    from sparsex_jax.symmetric import build_symmetric_csx
     import tempfile, os
 
     cfg = Config.instance()
@@ -162,9 +162,9 @@ def test_fuzz_reorder_persist_roundtrip(seed, tmp_path):
     """Public API: tune with RCM reorder, save, restore, solve — the
     permutation must survive the roundtrip."""
     import os
-    import sparsex_tpu as spx
-    from sparsex_tpu.ops import vector as vec
-    from sparsex_tpu.ops.oracle import coo_spmv
+    import sparsex_jax as spx
+    from sparsex_jax.ops import vector as vec
+    from sparsex_jax.ops.oracle import coo_spmv
 
     spx.option_set("spx.preproc.xform", "all")
     spx.option_set("spx.preproc.sampling", "none")
@@ -207,90 +207,67 @@ def test_fuzz_reorder_persist_roundtrip(seed, tmp_path):
         assert err < 1e-9, (seed, err)
 
 
-FUSED_CASES = list(itertools.product(range(4), [2, 4]))
-
-
-@pytest.mark.slow   # ~18 s/case x 8 on the 1-CPU host (quick lane skips)
-@pytest.mark.parametrize("seed,sbp", FUSED_CASES,
-                         ids=[f"s{s}-sbp{p}" for s, p in FUSED_CASES])
-def test_fuzz_fused_paths(seed, sbp, monkeypatch):
-    """Fuzz the FUSED pipeline paths (lane-placed packing, tail/diag
-    demotion, merged plans) that the tiny-matrix fuzz above never
-    reaches: gates lowered, f32, interpret-mode Pallas."""
+@pytest.mark.parametrize("seed", range(4))
+def test_fuzz_all_classes_f32(seed):
+    """Fuzz every table class at once (runs of each direction, blocks,
+    bands, singles) in float32 on the XLA path, at sizes the tiny-matrix
+    fuzz above never reaches."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
-    import sparsex_tpu.ops.fused as fused
-    import sparsex_tpu.ops.pallas_kernels as pk
-    import sparsex_tpu.ops.route as route_mod
-
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
-    # half the seeds keep multi-instance plans intact (demotion off at
-    # 64), half fuzz the demoted-to-residual paths (default threshold)
-    if seed % 2:
-        monkeypatch.setattr(route_mod, "RES_DEMOTE_ELEMS", 64)
-    monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
     cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", "float32")
+    cfg.set("spx.jax.value_dtype", "float32")
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "none")
     cfg.set("spx.rt.nr_threads", "1")
-    cfg.set("spx.tpu.sb_pages", str(sbp))
-    try:
-        nrows = ncols = 4096 + 512 * seed
-        rng = np.random.default_rng(seed + 77)
-        rows_l, cols_l = [], []
-        # runs of every class
-        for w, sr, sc in ((8, 0, 1), (4, 0, 1), (8, 1, 0), (16, 1, 1),
-                          (16, 1, -1)):
-            nu = int(rng.integers(100, 400))
-            r0 = rng.integers(0, nrows - 16 * max(sr, 1) - 1, nu)
-            c0 = rng.integers(16, ncols - 16, nu)
-            j = np.arange(w)
-            rows_l.append((r0[:, None] + sr * j[None]).ravel())
-            cols_l.append((c0[:, None] + sc * j[None]).ravel())
-        # blocks
-        nb = int(rng.integers(50, 200))
-        br, bc = 2, 4
-        r0 = rng.integers(0, nrows - br, nb)
-        c0 = rng.integers(0, ncols - bc, nb)
-        rr, cc = np.meshgrid(np.arange(br), np.arange(bc), indexing="ij")
-        rows_l.append((r0[:, None] + rr.ravel()[None]).ravel())
-        cols_l.append((c0[:, None] + cc.ravel()[None]).ravel())
-        # bands + singles
-        for b in (0, 7):
-            r = np.arange(0, nrows - b, dtype=np.int64)
-            rows_l.append(r)
-            cols_l.append(r + b)
-        m = int(rng.integers(4000, 12000))
-        rows_l.append(rng.integers(0, nrows, m))
-        cols_l.append(rng.integers(0, ncols, m))
-        rows = np.concatenate(rows_l)
-        cols = np.concatenate(cols_l)
-        keep = (rows >= 0) & (rows < nrows) & (cols >= 0) & (cols < ncols)
-        rows, cols = rows[keep], cols[keep]
-        _, u = np.unique(rows.astype(np.int64) * ncols + cols,
-                         return_index=True)
-        rows, cols = rows[u], cols[u]
-        o = np.lexsort((cols, rows))
-        rows, cols = rows[o], cols[o]
-        vals = (rng.standard_normal(rows.size) + 0.5).astype(np.float32)
+    nrows = ncols = 4096 + 512 * seed
+    rng = np.random.default_rng(seed + 77)
+    rows_l, cols_l = [], []
+    # runs of every class
+    for w, sr, sc in ((8, 0, 1), (4, 0, 1), (8, 1, 0), (16, 1, 1),
+                      (16, 1, -1)):
+        nu = int(rng.integers(100, 400))
+        r0 = rng.integers(0, nrows - 16 * max(sr, 1) - 1, nu)
+        c0 = rng.integers(16, ncols - 16, nu)
+        j = np.arange(w)
+        rows_l.append((r0[:, None] + sr * j[None]).ravel())
+        cols_l.append((c0[:, None] + sc * j[None]).ravel())
+    # blocks
+    nb = int(rng.integers(50, 200))
+    br, bc = 2, 4
+    r0 = rng.integers(0, nrows - br, nb)
+    c0 = rng.integers(0, ncols - bc, nb)
+    rr, cc = np.meshgrid(np.arange(br), np.arange(bc), indexing="ij")
+    rows_l.append((r0[:, None] + rr.ravel()[None]).ravel())
+    cols_l.append((c0[:, None] + cc.ravel()[None]).ravel())
+    # bands + singles
+    for b in (0, 7):
+        r = np.arange(0, nrows - b, dtype=np.int64)
+        rows_l.append(r)
+        cols_l.append(r + b)
+    m = int(rng.integers(4000, 12000))
+    rows_l.append(rng.integers(0, nrows, m))
+    cols_l.append(rng.integers(0, ncols, m))
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    keep = (rows >= 0) & (rows < nrows) & (cols >= 0) & (cols < ncols)
+    rows, cols = rows[keep], cols[keep]
+    _, u = np.unique(rows.astype(np.int64) * ncols + cols,
+                     return_index=True)
+    rows, cols = rows[u], cols[u]
+    o = np.lexsort((cols, rows))
+    rows, cols = rows[o], cols[o]
+    vals = (rng.standard_normal(rows.size) + 0.5).astype(np.float32)
 
-        mat = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals)
-        x = rng.standard_normal(ncols).astype(np.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = np.asarray(mat.matvec(jnp.asarray(x)))
-        prod = vals.astype(np.float64) * x.astype(np.float64)[cols]
-        want = np.zeros(nrows)
-        np.add.at(want, rows, prod)
-        # f32 compute vs f64 oracle: per-element |want| cancels to ~1e-4
-        # on rows whose terms nearly cancel, so normalize the error by the
-        # row's L1 mass (the f32 rounding scale) instead of max_rel_error.
-        mass = np.zeros(nrows)
-        np.add.at(mass, rows, np.abs(prod))
-        err = float(np.max(np.abs(y - want) / np.maximum(mass, 1e-30)))
-        assert err < 1e-5, (seed, sbp, err)
-    finally:
-        cfg.set("spx.tpu.sb_pages", "4")
+    mat = CsxMatrix.from_coo(nrows, ncols, rows, cols, vals)
+    x = rng.standard_normal(ncols).astype(np.float32)
+    y = np.asarray(mat.matvec(jnp.asarray(x)))
+    prod = vals.astype(np.float64) * x.astype(np.float64)[cols]
+    want = np.zeros(nrows)
+    np.add.at(want, rows, prod)
+    # f32 compute vs f64 oracle: per-element |want| cancels to ~1e-4
+    # on rows whose terms nearly cancel, so normalize the error by the
+    # row's L1 mass (the f32 rounding scale) instead of max_rel_error.
+    mass = np.zeros(nrows)
+    np.add.at(mass, rows, np.abs(prod))
+    err = float(np.max(np.abs(y - want) / np.maximum(mass, 1e-30)))
+    assert err < 1e-5, (seed, err)

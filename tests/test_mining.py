@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from sparsex_tpu.preprocess.mining import mine_blocks, mine_runs, split_block_runs
+from sparsex_jax.preprocess.mining import mine_blocks, mine_runs, split_block_runs
 
 
 def _mine(rows, cols, **kw):
@@ -123,9 +123,9 @@ def test_block_misaligned_start_skipped():
 def test_explicit_block_second_dim():
     """'br2{4}' must emit only 2x4 blocks (explicit instantiation parity)."""
     import numpy as np
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
-    from sparsex_tpu.ops.oracle import max_rel_error
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
+    from sparsex_jax.ops.oracle import max_rel_error
 
     cfg = Config.instance()
     cfg.set("spx.preproc.xform", "br2{4}")

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sparsex_tpu.errors import SparsexError
-from sparsex_tpu.io.mmf import load_mmf
+from sparsex_jax.errors import SparsexError
+from sparsex_jax.io.mmf import load_mmf
 from tests.fixtures import symmetric_mmf_text
 
 
@@ -73,8 +73,8 @@ def test_two_column_real_file_rejected():
     """A 'real' file whose lines lack the value column must be rejected,
     not re-tokenized across lines (code-review regression)."""
     import pytest
-    from sparsex_tpu.errors import SparsexError
-    from sparsex_tpu.io.mmf import load_mmf
+    from sparsex_jax.errors import SparsexError
+    from sparsex_jax.io.mmf import load_mmf
     text = ("%%MatrixMarket matrix coordinate real general\n"
             "3 3 2\n1 1\n2 2\n")
     with pytest.raises(SparsexError):
@@ -83,8 +83,8 @@ def test_two_column_real_file_rejected():
 
 def test_extra_column_rejected():
     import pytest
-    from sparsex_tpu.errors import SparsexError
-    from sparsex_tpu.io.mmf import load_mmf
+    from sparsex_jax.errors import SparsexError
+    from sparsex_jax.io.mmf import load_mmf
     text = ("%%MatrixMarket matrix coordinate real general\n"
             "2 2 2\n1 1 1.0 9\n2 2 1.0\n")
     with pytest.raises(SparsexError):
@@ -95,7 +95,7 @@ def test_mmf_property_roundtrip_fuzz():
     """Random COO -> save_mmf -> load_mmf roundtrips exactly, across banner
     variants; native and NumPy parsers agree."""
     import numpy as np
-    from sparsex_tpu.io.mmf import load_mmf, save_mmf
+    from sparsex_jax.io.mmf import load_mmf, save_mmf
     import tempfile, os
 
     rng = np.random.default_rng(0)
@@ -125,7 +125,7 @@ def test_mmf_zero_base_and_column_banner():
     """'column' = the stream is column-major ordered (coordinates stay
     (row, col)); the loader sorts instead of rejecting unsorted input
     (ref Mmf.hpp:359,445-478)."""
-    from sparsex_tpu.io.mmf import load_mmf
+    from sparsex_jax.io.mmf import load_mmf
     import numpy as np
     # column-major enumeration of [[1,0],[2,3]], 0-based (row col val)
     text = ("%%MatrixMarket matrix coordinate real general 0-base column\n"

@@ -1,6 +1,6 @@
 """Native C++ kernels vs their NumPy fallbacks.
 
-The native library (``sparsex_tpu/native/kernels.cpp``) re-implements the
+The native library (``sparsex_jax/native/kernels.cpp``) re-implements the
 host-side hot paths the reference keeps in compiled C/C++ (MMF parsing,
 DRLE segment scan, CSR baseline SpMV, coordinate sort); these tests pin the
 native results to the pure-NumPy reference implementations.
@@ -9,8 +9,8 @@ native results to the pure-NumPy reference implementations.
 import numpy as np
 import pytest
 
-from sparsex_tpu import native
-from sparsex_tpu.preprocess.mining import _segment_runs_np
+from sparsex_jax import native
+from sparsex_jax.preprocess.mining import _segment_runs_np
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")
@@ -119,21 +119,21 @@ def test_mark_covered():
 
 def test_mmf_loader_uses_native(tmp_path):
     """End-to-end: the loader must produce identical results either way."""
-    import sparsex_tpu.io.mmf as mmf_mod
+    import sparsex_jax.io.mmf as mmf_mod
     text = ("%%MatrixMarket matrix coordinate real general\n"
             "3 4 5\n1 1 1.0\n1 3 2.0\n2 2 3.0\n3 1 4.0\n3 4 5.0\n")
     a = mmf_mod.load_mmf(text)
     import os
-    os.environ["SPARSEX_TPU_NO_NATIVE"] = "1"
+    os.environ["SPARSEX_NO_NATIVE"] = "1"
     try:
         # force fallback by reloading module state
-        import sparsex_tpu.native as nat
+        import sparsex_jax.native as nat
         saved = nat._lib, nat._tried
         nat._lib, nat._tried = None, False
         b = mmf_mod.load_mmf(text)
         nat._lib, nat._tried = saved
     finally:
-        del os.environ["SPARSEX_TPU_NO_NATIVE"]
+        del os.environ["SPARSEX_NO_NATIVE"]
     np.testing.assert_array_equal(a.rows, b.rows)
     np.testing.assert_array_equal(a.cols, b.cols)
     np.testing.assert_array_equal(a.vals, b.vals)
@@ -145,7 +145,7 @@ def test_mmf_loader_uses_native(tmp_path):
 ])
 def test_select_units_matches_numpy(seed, minl, maxl, allowed, monkeypatch):
     """Native run->unit selection vs the vectorized NumPy path."""
-    from sparsex_tpu.preprocess import mining
+    from sparsex_jax.preprocess import mining
 
     rng = np.random.default_rng(seed)
     n = 3000

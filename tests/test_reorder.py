@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sparsex_tpu.reorder import bandwidth, cuthill_mckee, reorder_rcm
+from sparsex_jax.reorder import bandwidth, cuthill_mckee, reorder_rcm
 
 
 def band_after(nrows, rows, cols, vals):
@@ -68,7 +68,7 @@ def test_cuthill_mckee_visits_everything():
     cols = rng.integers(0, n, 120)
     keep = rows != cols
     rows, cols = rows[keep], cols[keep]
-    from sparsex_tpu.reorder import _adjacency
+    from sparsex_jax.reorder import _adjacency
     ptr, adj = _adjacency(n, np.concatenate([rows, cols]),
                           np.concatenate([cols, rows]))
     order = cuthill_mckee(n, ptr, adj)

@@ -5,10 +5,10 @@ import pytest
 
 import jax
 
-from sparsex_tpu.config import Config
-from sparsex_tpu.csx import CsxMatrix
-from sparsex_tpu.solvers import cg
-from sparsex_tpu.symmetric import build_symmetric_csx
+from sparsex_jax.config import Config
+from sparsex_jax.csx import CsxMatrix
+from sparsex_jax.solvers import cg
+from sparsex_jax.symmetric import build_symmetric_csx
 
 
 def spd_coo(n=80, seed=0):
@@ -62,7 +62,7 @@ def test_cg_on_symmetric_csx():
 
 def test_cg_on_sharded():
     from jax.sharding import Mesh
-    from sparsex_tpu.parallel.shard import ShardedCsx
+    from sparsex_jax.parallel.shard import ShardedCsx
     cfg = Config.instance()
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "none")
@@ -80,11 +80,11 @@ def test_cg_on_sharded():
 
 
 def test_bfloat16_value_dtype_smoke():
-    """spx.tpu.value_dtype=bfloat16 builds tables and computes at bf16
+    """spx.jax.value_dtype=bfloat16 builds tables and computes at bf16
     tolerance."""
     import jax.numpy as jnp
     cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", "bfloat16")
+    cfg.set("spx.jax.value_dtype", "bfloat16")
     cfg.set("spx.preproc.xform", "all")
     cfg.set("spx.preproc.sampling", "none")
     n = 64

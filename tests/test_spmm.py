@@ -3,14 +3,15 @@ oracle, plus block-CG.
 
 BASELINE.json configs[4] calls for CSX SpMV + SpMM; the reference API
 stops at single vectors (``include/sparsex/matvec.h:39-535``) — SpMM is
-the TPU-native extension where the k axis amortizes the gathers.
+the extension where the k axis amortizes the gathers.
 """
 
 import numpy as np
 import pytest
 
-from sparsex_tpu.config import Config
-from sparsex_tpu.csx import CsxMatrix
+from sparsex_jax.config import Config
+from sparsex_jax.csx import CsxMatrix
+from tests import fixtures
 
 
 def _mk(n, seed, kinds=("dia", "h", "v", "block", "rand")):
@@ -89,8 +90,8 @@ def test_spmm_alpha_beta():
 
 
 def test_spmm_api_and_dim_errors():
-    import sparsex_tpu as spx
-    from sparsex_tpu.errors import SparsexError
+    import sparsex_jax as spx
+    from sparsex_jax.errors import SparsexError
 
     cfg = Config.reset()
     n = 128
@@ -110,7 +111,7 @@ def test_spmm_api_and_dim_errors():
 
 
 def test_spmm_symmetric():
-    from sparsex_tpu.symmetric import build_symmetric_csx
+    from sparsex_jax.symmetric import build_symmetric_csx
 
     cfg = Config.reset()
     cfg.set("spx.rt.nr_threads", "2")
@@ -140,7 +141,7 @@ def test_spmm_symmetric():
 
 
 def test_block_cg():
-    from sparsex_tpu.solvers import block_cg, cg
+    from sparsex_jax.solvers import block_cg, cg
 
     cfg = Config.reset()
     cfg.set("spx.preproc.xform", "all")
@@ -164,7 +165,7 @@ def test_block_cg():
 
 
 def test_spgemm_oracle():
-    from sparsex_tpu.ops.spgemm import spgemm
+    from sparsex_jax.ops.spgemm import spgemm
 
     cfg = Config.reset()
     cfg.set("spx.preproc.xform", "all")
@@ -185,9 +186,9 @@ def test_spgemm_oracle():
 
 
 def test_spgemm_rectangular_and_api():
-    import sparsex_tpu as spx
-    from sparsex_tpu.errors import SparsexError
-    from sparsex_tpu.ops.spgemm import spgemm
+    import sparsex_jax as spx
+    from sparsex_jax.errors import SparsexError
+    from sparsex_jax.ops.spgemm import spgemm
 
     cfg = Config.reset()
     rng = np.random.default_rng(11)
@@ -217,10 +218,10 @@ def test_spgemm_rectangular_and_api():
 
 
 def test_spgemm_panel_stream():
-    from sparsex_tpu.ops.spgemm import spgemm_panel
+    from sparsex_jax.ops.spgemm import spgemm_panel
 
     cfg = Config.reset()
-    cfg.set("spx.tpu.value_dtype", "float32")
+    cfg.set("spx.jax.value_dtype", "float32")
     n = 256
     ra, ca, va = _mk(n, seed=12, kinds=("dia", "rand"))
     rb, cb, vb = _mk(n, seed=13, kinds=("dia", "rand"))
@@ -238,10 +239,10 @@ def test_spmm_sharded():
     """Sharded SpMM (one sharded SpMV per column under lax.map)."""
     import jax
     from jax.sharding import Mesh
-    from sparsex_tpu.parallel.shard import ShardedCsx
+    from sparsex_jax.parallel.shard import ShardedCsx
 
     cfg = Config.reset()
-    cfg.set("spx.tpu.value_dtype", "float32")
+    cfg.set("spx.jax.value_dtype", "float32")
     cfg.set("spx.rt.nr_threads", "4")
     n = 1024
     rows, cols, vals = _mk(n, seed=20, kinds=("dia", "rand"))
@@ -255,25 +256,17 @@ def test_spmm_sharded():
     assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-4
 
 
-def test_spmm_dia_slab_hybrid(monkeypatch):
-    """SpMM with the paged executor: DIA leaves the per-column loop and
-    lands as ONE (rows, k) slab pass (each dv grid read once, not once
-    per column); the routed tables keep the column map."""
-    import sparsex_tpu.ops.pallas_kernels as pk
-    import sparsex_tpu.ops.fused as fused
-    import sparsex_tpu.ops.route as route_mod
-    from jax.experimental.pallas import tpu as pltpu
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
+def test_spmm_dia_slab_hybrid():
+    """SpMM with alpha/beta on DIA tables + singles: the DIA windows run
+    as (rows, k) slabs beside the k-wide delta gather."""
+    import jax.numpy as jnp
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
 
-    monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
     cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", "float32")
+    cfg.set("spx.jax.value_dtype", "float32")
     cfg.set("spx.preproc.xform", "all")
-    cfg.set("spx.tpu.dia_min_fill", "0.5")
+    cfg.set("spx.jax.dia_min_fill", "0.5")
 
     rng = np.random.default_rng(5)
     n = 1 << 13
@@ -294,137 +287,57 @@ def test_spmm_dia_slab_hybrid(monkeypatch):
     vals = rng.standard_normal(rows.size).astype(np.float32)
     mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
     ex = mat.executors[0]
-    import jax.numpy as jnp
+    assert mat.shards[0].dias, "diagonals not folded to DIA"
     k = 5
     X = rng.standard_normal((n, k)).astype(np.float32)
     Y0 = rng.standard_normal((n, k)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        assert ex._pages_active()
-        extras = [e[0] for e in ex._pages_meta[5:] if e]
-        assert "k3dias" in extras, extras
-        Y = np.asarray(ex(jnp.asarray(X), alpha=1.7, beta=0.5,
-                          y=jnp.asarray(Y0)))
+    Y = np.asarray(ex(jnp.asarray(X), alpha=1.7, beta=0.5,
+                      y=jnp.asarray(Y0)))
     ref = 0.5 * Y0.astype(np.float64)
     np.add.at(ref, rows, 1.7 * vals[:, None].astype(np.float64)
               * X.astype(np.float64)[cols])
     assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-5
 
 
-def _fused_mm_matrix(n, rng, runs=False):
-    rows_l, cols_l = [], []
-    for b in (0, 3, -2):
-        r = np.arange(max(0, -b), min(n, n - b))
-        rows_l.append(r)
-        cols_l.append(r + b)
-    if runs:
-        hr = rng.integers(0, n, n // 8)
-        hc = rng.integers(0, n - 8, n // 8)
-        rows_l.append(np.repeat(hr, 8))
-        cols_l.append((hc[:, None] + np.arange(8)[None]).ravel())
-    rows_l.append(rng.integers(0, n, n))
-    cols_l.append(rng.integers(0, n, n))
-    rows = np.concatenate(rows_l)
-    cols = np.concatenate(cols_l)
-    _, u = np.unique(rows.astype(np.int64) * n + cols, return_index=True)
-    rows, cols = rows[u], cols[u]
-    o = np.lexsort((cols, rows))
-    rows, cols = rows[o], cols[o]
-    vals = np.random.default_rng(1).standard_normal(
-        rows.size).astype(np.float32)
-    return rows, cols, vals
+def _dot_generals(jaxpr):
+    """Every dot_general equation of a jaxpr, nested ones included."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn)
+        for v in eqn.params.values():
+            for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                inner = getattr(sub, "jaxpr", None)
+                if inner is not None:
+                    out += _dot_generals(getattr(inner, "jaxpr", inner))
+    return out
 
 
-@pytest.mark.parametrize("k,runs", [(5, False), (11, True)])
-def test_spmm_fused_k_batched(monkeypatch, k, runs):
-    """The k-batched fused pipeline (VERDICT r3 #2): SpMM runs the
-    K1/T1/K2/K3 kernels with an innermost k grid axis — metadata read
-    once — and must match BOTH the oracle and the per-column SpMV
-    bit-for-bit (same kernels, same accumulation order).  k=11 covers
-    the MM_FUSED_KB chunking (8 + 3)."""
+@pytest.mark.parametrize("symmetric,dtype,n_dots", [
+    (False, "float32", 1), (False, "float64", 1), (True, "float32", 2)])
+def test_block_products_use_highest_precision(symmetric, dtype, n_dots):
+    """SpMM block products (and the symmetric transposed one) ask for
+    HIGHEST precision, so a float32 product never drops to TF32."""
     import jax
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
-    import sparsex_tpu.ops.fused as fused
-    import sparsex_tpu.ops.pallas_kernels as pk
-    import sparsex_tpu.ops.route as route_mod
-    from sparsex_tpu.ops.kernels import fused_mm_ok
+    from sparsex_jax.ops.kernels import (local_contrib, static_meta,
+                                         tables_to_arrays)
 
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
-    monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
     cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", "float32")
-    cfg.set("spx.preproc.xform", "all")
-
-    rng = np.random.default_rng(31 + k)
-    n = 8192
-    rows, cols, vals = _fused_mm_matrix(n, rng, runs=runs)
+    cfg.set("spx.jax.value_dtype", dtype)
+    cfg.set("spx.preproc.xform", "br4")
+    cfg.set("spx.preproc.sampling", "none")
+    n, _, rows, cols, vals = fixtures.blocky_coo(n=96, bs=4, nblocks=40)
     mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
-    ex = mat.executors[0]
-    import jax.numpy as jnp
-    X = rng.standard_normal((n, k)).astype(np.float32)
-    Y0 = rng.standard_normal((n, k)).astype(np.float32)
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        assert ex._pages_active()
-        assert fused_mm_ok(ex._pages_meta), \
-            [e[0] for e in ex._pages_meta[5:] if e]
-        Y = np.asarray(ex(jnp.asarray(X)))
-        Yab = np.asarray(ex(jnp.asarray(X), alpha=1.7, beta=0.5,
-                            y=jnp.asarray(Y0)))
-        ys = np.stack([np.asarray(ex(jnp.asarray(X[:, j])))
-                       for j in range(k)], axis=1)
-    ref = np.zeros((n, k))
-    np.add.at(ref, rows, vals[:, None].astype(np.float64)
-              * X.astype(np.float64)[cols])
-    assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-5
-    # bit-exact vs the per-column fused SpMV (identical kernel chain)
-    assert np.array_equal(Y, ys)
-    refab = 1.7 * ref + 0.5 * Y0
-    assert np.abs(Yab - refab).max() / np.abs(refab).max() < 1e-5
-
-
-def test_spmm_fused_k_merged_fall(monkeypatch):
-    """k-batched SpMM over the MERGED route plan ("fall"): delta + run
-    segments share one instance set; the k-major merged_e1s path must
-    match the per-column result exactly."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    import sparsex_tpu.ops.fused as fused
-    import sparsex_tpu.ops.pallas_kernels as pk
-    import sparsex_tpu.ops.route as route_mod
-    from sparsex_tpu.ops.kernels import fused_mm_ok
-
-    monkeypatch.setattr(fused, "MIN_FUSED_NNZ", 256)
-    monkeypatch.setattr(pk, "MIN_PAGE_NNZ", 64)
-    monkeypatch.setattr(route_mod, "MIN_ELEMS", 64)
-    monkeypatch.setattr(pk, "dia_pallas_ok", lambda: True)
-    cfg = Config.instance()
-    cfg.set("spx.tpu.value_dtype", "float32")
-    cfg.set("spx.preproc.xform", "all")
-    cfg.set("spx.tpu.dia_min_fill", "0.9")  # keep diagonals as runs
-
-    rng = np.random.default_rng(7)
-    n = 16384
-    rows, cols, vals = _fused_mm_matrix(n, rng, runs=True)
-    mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
-    ex = mat.executors[0]
-    k = 6
-    X = rng.standard_normal((n, k)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        assert ex._pages_active()
-        extras = {e[0] for e in ex._pages_meta[5:] if e}
-        assert "fall" in extras, extras
-        assert fused_mm_ok(ex._pages_meta)
-        Y = np.asarray(ex(jnp.asarray(X)))
-        ys = np.stack([np.asarray(ex(jnp.asarray(X[:, j])))
-                       for j in range(k)], axis=1)
-    ref = np.zeros((n, k))
-    np.add.at(ref, rows, vals[:, None].astype(np.float64)
-              * X.astype(np.float64)[cols])
-    assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-5
-    assert np.array_equal(Y, ys)
+    tables = mat.shards[0]
+    assert tables.blocks, "no block table mined"
+    meta, arrs = static_meta(tables), tables_to_arrays(tables)
+    X = jnp.zeros((n, 3), dtype=dtype)
+    jaxpr = jax.make_jaxpr(lambda X: local_contrib(
+        meta, arrs, X, nrows_part=n, ncols=n, symmetric=symmetric,
+        nrows_glob=n))(X)
+    dots = _dot_generals(jaxpr.jaxpr)
+    assert len(dots) == n_dots
+    for eqn in dots:
+        assert "HIGHEST" in str(eqn.params["precision"]), eqn.params

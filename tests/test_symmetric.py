@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import sparsex_tpu as spx
-from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
-from sparsex_tpu.symmetric import build_symmetric_csx
+import sparsex_jax as spx
+from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
+from sparsex_jax.symmetric import build_symmetric_csx
 from tests import fixtures
 
 TOL = 1e-6
@@ -56,13 +56,13 @@ def test_symmetric_get_set():
 def test_symmetric_full_expansion(nthreads, xform):
     """sym_full=on: the mirrored full-expansion executor must match the
     oracle exactly like the per-shard path (mirror_full_tables)."""
-    spx.option_set("spx.tpu.sym_full", "on")
+    spx.option_set("spx.jax.sym_full", "on")
     _check_sym(nthreads=nthreads, xform=xform)
 
 
 def test_symmetric_full_expansion_banded():
     """DIA mirroring: banded symmetric (diag offsets + main diagonal)."""
-    spx.option_set("spx.tpu.sym_full", "on")
+    spx.option_set("spx.jax.sym_full", "on")
     spx.option_set("spx.preproc.xform", "all")
     n = 150
     rows, cols = [], []
@@ -93,8 +93,8 @@ def test_symmetric_full_expansion_banded():
 def test_symmetric_full_expansion_structure():
     """Each lower-triangle pattern class maps onto a first-class mirrored
     pattern (run<->run, block<->block) — no structure is lost."""
-    from sparsex_tpu.preprocess.encodings import EncType
-    from sparsex_tpu.symmetric import mirror_full_tables
+    from sparsex_jax.preprocess.encodings import EncType
+    from sparsex_jax.symmetric import mirror_full_tables
 
     spx.option_set("spx.preproc.xform", "all")
     n = 64
@@ -123,7 +123,7 @@ def test_symmetric_full_expansion_structure():
     for br, bc in list(kinds):
         assert (bc, br) in kinds
     # numeric identity of the mirrored tables
-    from sparsex_tpu.ops.exec import CsxExecutor
+    from sparsex_jax.ops.exec import CsxExecutor
     x = np.random.default_rng(0).standard_normal(n)
     got = np.asarray(CsxExecutor(ft)(x))
     want = coo_spmv(n, rf, cf, vf, x)
@@ -131,7 +131,7 @@ def test_symmetric_full_expansion_structure():
 
 
 def test_symmetric_full_spmm():
-    spx.option_set("spx.tpu.sym_full", "on")
+    spx.option_set("spx.jax.sym_full", "on")
     nrows, ncols, rows, cols, vals = fixtures.symmetric_coo(n=70, seed=6)
     mat = build_symmetric_csx(nrows, ncols, rows, cols, vals)
     rng = np.random.default_rng(6)
@@ -143,7 +143,7 @@ def test_symmetric_full_spmm():
 
 
 def test_symmetric_full_set_entry_invalidates():
-    spx.option_set("spx.tpu.sym_full", "on")
+    spx.option_set("spx.jax.sym_full", "on")
     mat, rows, cols, vals = _check_sym()
     r, c = int(rows[0]), int(cols[0])
     mat.set_entry(r, c, 77.0)

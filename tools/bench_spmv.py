@@ -31,9 +31,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sparsex_tpu.platform import honor_jax_platforms_env  # noqa: E402
+from sparsex_jax.platform import (  # noqa: E402
+    enable_compile_cache, honor_jax_platforms_env)
 
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu must win over the TPU plugin
+honor_jax_platforms_env()  # JAX_PLATFORMS=cpu pins the backend
+enable_compile_cache()
 
 LOOPS = int(os.environ.get("LOOPS", "128"))
 OUTER_LOOPS = int(os.environ.get("OUTER_LOOPS", "5"))
@@ -65,7 +67,7 @@ class SparsexAdapter:
     name = "sparsex"
 
     def __init__(self, mmf):
-        import sparsex_tpu as spx
+        import sparsex_jax as spx
         t0 = time.perf_counter()
         inp = spx.api.Input(kind="mmf", mmf=mmf)
         self.mat = spx.mat_tune(inp)
@@ -126,7 +128,7 @@ class NativeAdapter:
     name = "native"
 
     def __init__(self, mmf):
-        from sparsex_tpu import native
+        from sparsex_jax import native
         if not native.available():
             raise RuntimeError("native library unavailable")
         rows, cols, vals = mmf.tocoo()
@@ -176,9 +178,9 @@ ADAPTERS = {"sparsex": SparsexAdapter, "csr": CsrAdapter,
 
 
 def bench_matrix(path, libs):
-    import sparsex_tpu as spx
-    from sparsex_tpu.io.mmf import load_mmf
-    from sparsex_tpu.ops.oracle import max_rel_error
+    import sparsex_jax as spx
+    from sparsex_jax.io.mmf import load_mmf
+    from sparsex_jax.ops.oracle import max_rel_error
 
     spx.config.options_set_from_env()
     cfg = spx.config.Config.instance()

@@ -2,7 +2,7 @@
 """End-to-end soak: every major execution path on the current backend.
 
 Runs mixed-structure SpMV, symmetric, sharded (replicated + halo), SpMM,
-SpGEMM, CG, save/restore-with-layouts — each against an independent oracle
+SpGEMM, CG, save/restore — each against an independent oracle
 at the dtype's tolerance.  Exit code 0 = all green.  Used at the end of a
 build round on the real chip; also runs on CPU.
 
@@ -18,9 +18,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sparsex_tpu.platform import honor_jax_platforms_env  # noqa: E402
+from sparsex_jax.platform import (  # noqa: E402
+    enable_compile_cache, honor_jax_platforms_env)
 
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu must win over the TPU plugin
+honor_jax_platforms_env()  # JAX_PLATFORMS=cpu pins the backend
+enable_compile_cache()
 
 
 def check(tag, got, want, tol):
@@ -41,17 +43,17 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
-    from sparsex_tpu.ops.spgemm import spgemm
-    from sparsex_tpu.parallel.shard import ShardedCsx
-    from sparsex_tpu.persist import restore_csx, save_csx
-    from sparsex_tpu.solvers import block_cg, cg
-    from sparsex_tpu.symmetric import build_symmetric_csx
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
+    from sparsex_jax.ops.spgemm import spgemm
+    from sparsex_jax.parallel.shard import ShardedCsx
+    from sparsex_jax.persist import restore_csx, save_csx
+    from sparsex_jax.solvers import block_cg, cg
+    from sparsex_jax.symmetric import build_symmetric_csx
 
     print(f"backend: {jax.default_backend()}  devices: {len(jax.devices())}")
     cfg = Config.reset()
-    cfg.set("spx.tpu.value_dtype", "float32")
+    cfg.set("spx.jax.value_dtype", "float32")
     cfg.set("spx.preproc.xform", "all")
     tol = 5e-4  # f32 accumulation across millions of terms
     ok = True
@@ -94,10 +96,10 @@ def main():
     np.add.at(refM, rows, vals[:, None].astype(np.float64) * X[cols])
     ok &= check("SpMM k=4", mat.matmat(jnp.asarray(X)), refM, tol)
 
-    # save/restore with layouts
+    # save/restore
     save_csx(mat, "/tmp/soak_cache.npz")
     mat2, _ = restore_csx("/tmp/soak_cache.npz")
-    ok &= check("restore(+layouts) SpMV", mat2.matvec(jnp.asarray(x)),
+    ok &= check("restore SpMV", mat2.matvec(jnp.asarray(x)),
                 ref, tol)
 
     # sharded: replicated + halo (as many shards as devices, min 1)
@@ -105,14 +107,14 @@ def main():
     cfg.set("spx.rt.nr_threads", str(ndev))
     matS = CsxMatrix.from_coo(n, n, rows, cols, vals)
     mesh = Mesh(np.array(jax.devices()[:ndev]), ("shards",))
-    cfg.set("spx.tpu.x_mode", "replicated")
+    cfg.set("spx.jax.x_mode", "replicated")
     ok &= check(f"sharded x{ndev} replicated",
                 ShardedCsx(matS, mesh=mesh).matvec(jnp.asarray(x)), ref, tol)
-    cfg.set("spx.tpu.x_mode", "halo")
+    cfg.set("spx.jax.x_mode", "halo")
     sh = ShardedCsx(matS, mesh=mesh)
     ok &= check(f"sharded x{ndev} halo(k={sh.halo_k})",
                 sh.matvec(jnp.asarray(x)), ref, tol)
-    cfg.set("spx.tpu.x_mode", "auto")
+    cfg.set("spx.jax.x_mode", "auto")
     cfg.set("spx.rt.nr_threads", "1")
 
     # symmetric

@@ -23,9 +23,11 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from sparsex_tpu.platform import honor_jax_platforms_env  # noqa: E402
+from sparsex_jax.platform import (  # noqa: E402
+    enable_compile_cache, honor_jax_platforms_env)
 
-honor_jax_platforms_env()  # JAX_PLATFORMS=cpu must win over the TPU plugin
+honor_jax_platforms_env()  # JAX_PLATFORMS=cpu pins the backend
+enable_compile_cache()
 
 LOOPS = int(os.environ.get("LOOPS", "128"))
 TOLERANCE = 1e-6  # ref src/internals/Vector.cpp:51-56
@@ -40,9 +42,9 @@ def main(argv=None):
     ap.add_argument("-t", "--timing", action="store_true")
     args = ap.parse_args(argv)
 
-    import sparsex_tpu as spx
-    from sparsex_tpu.errors import SparsexError
-    from sparsex_tpu.ops.oracle import coo_spmv, max_rel_error
+    import sparsex_jax as spx
+    from sparsex_jax.errors import SparsexError
+    from sparsex_jax.ops.oracle import coo_spmv, max_rel_error
 
     spx.init()
     try:
@@ -53,7 +55,7 @@ def main(argv=None):
         inp = spx.input_load_mmf(args.matrix)
         # Oracle COO straight from the file (mirrored when symmetric).
         cfg = spx.config.Config.instance()
-        from sparsex_tpu.io.mmf import load_mmf
+        from sparsex_jax.io.mmf import load_mmf
         oracle = load_mmf(args.matrix, keep_lower=False)
         nrows, ncols = oracle.nrows, oracle.ncols
 
@@ -69,7 +71,7 @@ def main(argv=None):
     x_run = x
     perm = mat.permutation
     if perm is not None:
-        from sparsex_tpu.ops import vector as vec
+        from sparsex_jax.ops import vector as vec
         x_run = vec.reorder(x, perm)
 
     t0 = time.perf_counter()
@@ -78,7 +80,7 @@ def main(argv=None):
     y = np.asarray(y, dtype=np.float64)
     secs = time.perf_counter() - t0
     if perm is not None:
-        from sparsex_tpu.ops import vector as vec
+        from sparsex_jax.ops import vector as vec
         y = np.asarray(vec.inv_reorder(y, perm), dtype=np.float64)
 
     want = coo_spmv(nrows, *oracle.tocoo(), x, alpha=2.0)

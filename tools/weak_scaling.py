@@ -1,21 +1,17 @@
 #!/usr/bin/env python
 """Weak-scaling harness: nnz grows with the device count.
 
-BASELINE.md target: >= 80% weak-scaling efficiency at 2+ hosts.  This rig
-has one TPU chip, so by default the harness runs the full sharded program
-on an N-device *virtual CPU mesh* to validate the machinery (shardings,
-halo ring, reduce-scatter) and report the collective/compute structure; on
-a real pod slice the same flags measure true efficiency:
+BASELINE.md target: >= 80% weak-scaling efficiency at 2+ devices.  With
+``--cpu`` the harness runs the full sharded program on an N-device
+*virtual CPU mesh* to validate the machinery (shardings, halo ring,
+reduce-scatter); on real GPUs the same flags measure true efficiency:
 
-    python tools/weak_scaling.py --devices 1 2 4 8 --mode halo
-    python tools/weak_scaling.py --devices 8 --mesh 2x4   # (dcn, ici)
+    python tools/weak_scaling.py --devices 1 2 4 --mode halo
+    python tools/weak_scaling.py --devices 4 --mesh 2x2   # (host, dev)
 
 Efficiency = t(1 device, base problem) / t(N devices, N x base problem).
-CPU-mesh numbers are NOT TPU performance: on a single-core host the
+CPU-mesh numbers are NOT device performance: on a single-core host the
 virtual devices serialize, so efficiency reads ~1/N there by construction.
-The harness exists so a real pod slice can run the same command and get a
-true number; on this rig it validates that the sharded program builds,
-runs and stays numerically correct at every N.
 """
 
 import argparse
@@ -56,26 +52,27 @@ def main():
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "replicated", "halo"])
     ap.add_argument("--mesh", default="",
-                    help="DxI for a 2-D (dcn, ici) mesh, e.g. 2x4")
+                    help="HxD for a 2-D (host, dev) mesh, e.g. 2x2")
     ap.add_argument("--loops", type=int, default=16)
     ap.add_argument("--cpu", action="store_true", default=None,
                     help="force the virtual CPU mesh (default when fewer "
                          "real devices than requested)")
     ap.add_argument("--json", default="",
-                    help="write structured results to this path (round "
-                         "artifact, e.g. WEAKSCALE_r04.json)")
+                    help="write structured results to this path")
     args = ap.parse_args()
 
     # The platform must be decided BEFORE the first backend-initializing
     # call (jax.devices()): on jax 0.9 a later jax.config.update is a
     # silent no-op, so probing real devices first would lock us out of the
     # virtual CPU mesh.
-    from sparsex_tpu.platform import force_cpu, honor_jax_platforms_env
+    from sparsex_jax.platform import (enable_compile_cache, force_cpu,
+                                      honor_jax_platforms_env)
     want = max(args.devices)
     if args.cpu or os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
         force_cpu(min_devices=want)
     else:
         honor_jax_platforms_env()
+    enable_compile_cache()
     import jax
     if len(jax.devices()) < want:
         print(f"ERROR: {len(jax.devices())} device(s) available but "
@@ -87,17 +84,17 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from sparsex_tpu.config import Config
-    from sparsex_tpu.csx import CsxMatrix
-    from sparsex_tpu.parallel.shard import ShardedCsx
+    from sparsex_jax.config import Config
+    from sparsex_jax.csx import CsxMatrix
+    from sparsex_jax.parallel.shard import ShardedCsx
 
     results = []
     for nd in args.devices:
         cfg = Config.reset()
-        cfg.set("spx.tpu.value_dtype", "float32")
+        cfg.set("spx.jax.value_dtype", "float32")
         cfg.set("spx.preproc.xform", "all")
         cfg.set("spx.rt.nr_threads", str(nd))
-        cfg.set("spx.tpu.x_mode", args.mode)
+        cfg.set("spx.jax.x_mode", args.mode)
         n = args.base_n * nd
         rows, cols, vals = build(n)
         mat = CsxMatrix.from_coo(n, n, rows, cols, vals)
@@ -105,8 +102,8 @@ def main():
         if args.mesh and nd == int(args.mesh.split("x")[0]) * int(
                 args.mesh.split("x")[1]):
             d, i = (int(v) for v in args.mesh.split("x"))
-            mesh = Mesh(np.array(devs).reshape(d, i), ("dcn", "ici"))
-            sh = ShardedCsx(mat, mesh=mesh, axis=("dcn", "ici"))
+            mesh = Mesh(np.array(devs).reshape(d, i), ("host", "dev"))
+            sh = ShardedCsx(mat, mesh=mesh, axis=("host", "dev"))
         else:
             mesh = Mesh(np.array(devs), ("shards",))
             sh = ShardedCsx(mat, mesh=mesh)
@@ -115,7 +112,7 @@ def main():
         x = jnp.asarray(x_np)
 
         # correctness at every N vs the COO oracle (f32 sum-order tol)
-        from sparsex_tpu.ops.oracle import coo_spmv
+        from sparsex_jax.ops.oracle import coo_spmv
         y = np.asarray(sh.matvec(x), dtype=np.float64)
         y_ref = coo_spmv(n, rows, cols, vals, x_np)
         scale = 1e-3 * float(np.max(np.abs(y_ref))) + 1e-30
@@ -153,7 +150,7 @@ def main():
         out = {
             "platform": plat,
             "note": ("virtual CPU mesh: validates sharded build/run/"
-                     "numerics; efficiency is NOT TPU performance "
+                     "numerics; efficiency is NOT device performance "
                      "(single-core host serializes the devices)"
                      if plat == "cpu" else "real devices"),
             "mode": args.mode,
